@@ -1,8 +1,8 @@
-"""gaml_tpu — a TPU-native maximum-likelihood genome assembler.
+"""gaml_tpu — a maximum-likelihood genome assembler on JAX.
 
 Re-implements the full capability surface of the GAML assembler (reference:
-C++ single-threaded, external Bowtie2/BLASR/MUMmer subprocesses) as a
-TPU-first framework:
+C++ single-threaded, external Bowtie2/BLASR/MUMmer subprocesses) with an
+accelerator device path (an NVIDIA GPU; the CPU runs the same code):
 
 - device side (JAX/Pallas): batched seed verification + banded edit-distance
   extension for short reads, banded log-space forward DP for long (PacBio)

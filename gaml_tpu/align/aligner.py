@@ -469,12 +469,13 @@ class SubpathAligner:
         def postprocess():
             res, n = fetch()
             if res is None:
-                # cap overflow: redo the whole batch with the exact
-                # native window aligner (bit-identical output)
+                # cap overflow: redo the whole batch with the native
+                # min-cost window aligner (bit-identical output)
                 from ..native import align_windows_batch
 
                 for si, r in zip(keep, align_windows_batch(
-                        self.native_bundle, seqs, list(offsets))):
+                        self.native_bundle, seqs, list(offsets),
+                        min_cost=True)):
                     out[si] = AlignmentColumns(*r)
                 return out
             ok, errs, begin, rid, orient, seg = res

@@ -1,6 +1,6 @@
 """Long-read (PacBio) seeding and chaining.
 
-TPU-native replacement for the reference's BLASR subprocess
+Internal replacement for the reference's BLASR subprocess
 (graph.cc:2530-2539, 2705-2715): k-mer seed matches between a read and a
 target sequence are chained colinearly; the chain supplies (a) anchor
 presence/extents for the anchor indexes (reference ComputeAnchors,

@@ -80,7 +80,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="bfs", choices=["bfs", "device"],
                     help="short-read extension backend: bfs = bit-exact "
                          "reference semantics (native-accelerated), device "
-                         "= TPU min-cost kernel")
+                         "= min-cost kernel on the JAX device (GPU "
+                         "Pallas kernel; plain jnp on CPU)")
     ap.add_argument("--resume", default="",
                     help="resume from <prefix>.ckpt")
     ap.add_argument("--paired-device", action="store_true",
@@ -107,8 +108,6 @@ def main(argv=None) -> int:
                          "GAML_NPROC and GAML_PROC_ID")
     args = ap.parse_args(argv)
 
-    import os
-
     coord = args.distributed or os.environ.get("GAML_COORD", "")
     if coord:
         nproc = os.environ.get("GAML_NPROC")
@@ -125,6 +124,9 @@ def main(argv=None) -> int:
             num_processes=int(nproc),
             process_id=int(proc_id))
 
+    from .utils.device import enable_compile_cache
+
+    enable_compile_cache()
     configs, read_set_configs = load_config(args.config)
     if "graph" not in configs and "starting_assembly" not in configs:
         print("Missing graph in config", file=sys.stderr)
@@ -161,11 +163,10 @@ def main(argv=None) -> int:
         pc.enable_sharded_pacbio(make_mesh())
     elif args.backend == "device" and pacbio:
         # single-chip device routing for the long-read forward DP: batches
-        # above the cost-model threshold go to the Pallas kernel (the
-        # measured ~1.5M-cell crossover is the library default in
-        # scoring/pacbio.py).  The executable ladder compiles in the
-        # BACKGROUND while early moves are served by the exact native
-        # kernels; GAML_PB_PREWARM_SYNC=1 restores the blocking prewarm.
+        # above the cell threshold (scoring/pacbio.py) go to the device.
+        # The executables compile in the BACKGROUND while early moves
+        # are served by the exact native kernels;
+        # GAML_PB_PREWARM_SYNC=1 makes the prewarm blocking.
         for _cfg, rs in pacbio:
             if os.environ.get("GAML_PB_PREWARM_SYNC") == "1":
                 rs.prewarm_device()

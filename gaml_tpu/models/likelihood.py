@@ -10,8 +10,8 @@ mirror the reference's read-set kinds:
 - PairedEndModel: dense per-read position lists -> innie pair products with
   the insert-size Gaussian -> floored mean-log score (reference
   graph.cc:1991-2127);
-- the PacBio banded-forward kernel is exposed via ops.forward /
-  ops.forward_pallas and scoring.pacbio (its batches are staged per walk).
+- the PacBio banded-forward kernel is exposed via ops.forward and
+  scoring.pacbio (its batches are staged per walk).
 """
 from __future__ import annotations
 
@@ -41,14 +41,9 @@ class LikelihoodModel:
 
 
 class SingleEndModel(LikelihoodModel):
-    def forward_fn(self, rmax: int, n_reads: int, use_pallas: bool = False):
+    def forward_fn(self, rmax: int, n_reads: int):
         """Returns the jittable forward step (positional array args; see
-        ops.score.single_end_forward / single_end_forward_pallas)."""
-        if use_pallas:
-            from ..ops.score import single_end_forward_pallas
-
-            return functools.partial(single_end_forward_pallas, rmax=rmax,
-                                     n_reads=n_reads)
+        ops.score.single_end_forward)."""
         from ..ops.score import single_end_forward
 
         return functools.partial(single_end_forward, rmax=rmax,

@@ -2,11 +2,18 @@
 
 ``get_lib()`` returns the loaded library or None (callers fall back to the
 Python implementations, which are bit-identical but slower).
+
+The library is built from the committed ``gaml_native.cc`` into
+``_build/`` (git-ignored), under a name keyed by a hash of the source,
+the compiler flags and the host CPU: ``-march=native`` code built on one
+machine is never loaded on another.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 from typing import List, Optional, Tuple
@@ -15,49 +22,87 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "gaml_native.cc")
-_SO = os.path.join(_HERE, "libgaml_native.so")
+_BUILD_DIR = os.path.join(_HERE, "_build")
+_FLAGS = ["-O3", "-march=native", "-funroll-loops", "-std=c++17",
+          "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+load_error: Optional[str] = None  # why get_lib() returned None, if it did
 
 
-def build(force: bool = False) -> bool:
-    """Compile the shared library if missing or stale."""
-    if not force and os.path.exists(_SO) and \
-            os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return True
-    cmd = ["g++", "-O3", "-march=native", "-funroll-loops", "-fopenmp",
-           "-std=c++17", "-shared", "-fPIC", "-o", _SO, _SRC]
+def _host_cpu() -> str:
+    """CPU identity for the build key: model name and feature flags."""
+    keep = ("model name", "flags", "Features", "CPU part")
+    lines = []
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        return True
-    except (subprocess.CalledProcessError, OSError):
-        try:  # toolchains without OpenMP: serial batch loop
-            subprocess.run([c for c in cmd if c != "-fopenmp"],
-                           check=True, capture_output=True)
-            return True
-        except (subprocess.CalledProcessError, OSError):
-            return False
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.split(":")[0].strip() in keep and line not in lines:
+                    lines.append(line)
+    except OSError:
+        pass
+    return platform.machine() + "".join(sorted(lines))
+
+
+def lib_path(openmp: bool = True) -> str:
+    """Build path of the library for this source, flags and host CPU."""
+    flags = _FLAGS + (["-fopenmp"] if openmp else [])
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(flags).encode())
+    h.update(_host_cpu().encode())
+    return os.path.join(_BUILD_DIR, f"libgaml_native-{h.hexdigest()[:16]}.so")
+
+
+def build(force: bool = False) -> Optional[str]:
+    """Compile the shared library unless this source/flags/CPU build
+    exists; returns its path, or None if no compiler succeeded."""
+    global load_error
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    err = ""
+    for openmp in (True, False):  # toolchains without OpenMP: serial loop
+        so = lib_path(openmp)
+        if not force and os.path.exists(so):
+            return so
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = ["g++"] + _FLAGS + (["-fopenmp"] if openmp else []) + \
+            ["-o", tmp, _SRC]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True)
+        except subprocess.CalledProcessError as e:
+            err = e.stderr.decode(errors="replace")[-2000:]
+            continue
+        except OSError as e:
+            err = str(e)
+            continue
+        os.replace(tmp, so)  # atomic: concurrent builders never see a stub
+        return so
+    load_error = f"native build failed: {err}"
+    return None
 
 
 def get_lib():
-    global _lib, _tried
+    global _lib, _tried, load_error
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
         if os.environ.get("GAML_TPU_NO_NATIVE") == "1":
             return None
-        if not build():
+        so = build()
+        if so is None:
             return None
         # OpenMP workers must sleep between batch calls: spin-waiting
         # steals cores from the Python thread between native regions
         os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
         os.environ.setdefault("GOMP_SPINCOUNT", "0")
         try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
+            lib = ctypes.CDLL(so)
+        except OSError as e:
+            load_error = f"native load failed: {e}"
             return None
         lib.maxhash_window_query.restype = ctypes.c_int64
         lib.maxhash_window_query.argtypes = [
@@ -84,7 +129,7 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64]
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
         lib.align_windows_batch.restype = None
         lib.align_windows_batch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -94,7 +139,8 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int32]
         lib.query_window.restype = ctypes.c_int64
         lib.query_window.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
@@ -309,9 +355,12 @@ class NativeAlignBundle:
         self.row_of = np.ascontiguousarray(row_of.astype(np.int32))
 
 
-def align_window(bundle: NativeAlignBundle, seq: np.ndarray, offset: int):
+def align_window(bundle: NativeAlignBundle, seq: np.ndarray, offset: int,
+                 min_cost: bool = False):
     """Native full window alignment; returns (pos, ed, rid, orient) sorted
-    column arrays."""
+    column arrays.  Extension: the reference's exact 0-1 BFS, or with
+    ``min_cost`` the device backend's min-cost banded DP (bit-identical
+    to ops.extend)."""
     lib = get_lib()
     assert lib is not None
     seq = np.ascontiguousarray(seq, dtype=np.uint8)
@@ -328,7 +377,8 @@ def align_window(bundle: NativeAlignBundle, seq: np.ndarray, offset: int):
             bundle.codes_fwd.ctypes.data, bundle.codes_rc.ctypes.data,
             bundle.codes_fwd.shape[1] if bundle.codes_fwd.ndim == 2 else 0,
             bundle.seed_pos.ctypes.data, bundle.row_of.ctypes.data,
-            out_pos.ctypes.data, out_ed.ctypes.data, out_rid.ctypes.data, out_or.ctypes.data, cap)
+            out_pos.ctypes.data, out_ed.ctypes.data, out_rid.ctypes.data,
+            out_or.ctypes.data, cap, int(min_cost))
         if n <= cap:
             break
         cap = int(n) + 64
@@ -411,10 +461,11 @@ _EV_POOL = None
 
 
 def align_windows_batch(bundle: NativeAlignBundle, seqs: List[np.ndarray],
-                        offsets: List[int]):
+                        offsets: List[int], min_cost: bool = False):
     """Align many windows in one native call (OpenMP-parallel across
-    windows; bit-identical to serial align_window per window).  Returns a
-    list of (pos, ed, rid, orient) tuples parallel to ``seqs``."""
+    windows; bit-identical to serial align_window per window, with the
+    same ``min_cost`` choice).  Returns a list of (pos, ed, rid, orient)
+    tuples parallel to ``seqs``."""
     lib = get_lib()
     assert lib is not None
     n_win = len(seqs)
@@ -450,12 +501,14 @@ def align_windows_batch(bundle: NativeAlignBundle, seqs: List[np.ndarray],
         bundle.codes_fwd.shape[1] if bundle.codes_fwd.ndim == 2 else 0,
         bundle.seed_pos.ctypes.data, bundle.row_of.ctypes.data,
         out_off.ctypes.data, out_pos.ctypes.data, out_ed.ctypes.data,
-        out_rid.ctypes.data, out_or.ctypes.data, out_ns.ctypes.data)
+        out_rid.ctypes.data, out_or.ctypes.data, out_ns.ctypes.data,
+        int(min_cost))
     results = []
     for i in range(n_win):
         n = int(out_ns[i])
         if n > int(caps[i]):  # overflow: redo this window alone
-            results.append(align_window(bundle, seqs[i], int(offsets[i])))
+            results.append(align_window(bundle, seqs[i], int(offsets[i]),
+                                        min_cost))
             continue
         a, b = int(out_off[i]), int(out_off[i]) + n
         results.append((out_pos[a:b].copy(), out_ed[a:b].copy(),

@@ -322,6 +322,104 @@ static void collect_window_cands(
                    });
 }
 
+// Min-cost seed extension: the device backend's banded DP
+// (ops/extend.py _dp_rows) for one candidate, bit-identical to it.  The
+// 0-1 BFS above charges some indel alignments more than their true cost
+// (push-time visited marks); the DP computes the min cost over the same
+// restricted alignment graph (band +-3, forced matches, per-direction cap
+// ERROR_LIMIT) and replicates the BFS's begin tie-break.  The device
+// backend's host route uses this so that its results never depend on
+// which route served a batch.
+static void min_cost_dir(const uint8_t* rv, int32_t rlen, const uint8_t* gv,
+                         int64_t gv_lo, int64_t gv_hi, int32_t glen_v,
+                         int32_t* out_c, int32_t* out_a) {
+  // rv[r]: direction-view read; gv[x] for x in [gv_lo, gv_hi) is the
+  // direction-view genome (sentinel 8 outside)
+  const int32_t INF = 100, INVALID = 100;
+  int32_t c[7], a[7], cr[7], ar[7], nc[7];
+  bool mt[7], gpi[7], tsub[7], tgsk[7], trsk[7];
+  for (int d = 0; d < 7; d++) {
+    c[d] = 0;
+    a[d] = d - 3;
+  }
+  for (int32_t r = rlen - 1; r >= 0; r--) {
+    int32_t rc = rv[r];
+    bool last = (r + 1) == rlen;
+    for (int d = 0; d < 7; d++) {
+      int64_t x = (int64_t)r + d - 3;
+      int32_t ch = (x >= gv_lo && x < gv_hi) ? gv[x] : 8;
+      mt[d] = ch == rc;
+      gpi[d] = (r + (d - 3) + 1) < glen_v;
+      int32_t diag = (mt[d] && (gpi[d] || last)) ? c[d] : INF;
+      int32_t sb = (!mt[d] && gpi[d]) ? c[d] + 1 : INF;
+      int32_t cdm1 = d > 0 ? c[d - 1] : INF;
+      int32_t rs = !mt[d] ? cdm1 + 1 : INF;
+      cr[d] = std::min(std::min(diag, sb), rs);
+    }
+    for (int it = 0; it < 3; it++) {  // genome-skip relaxation, d+1 -> d
+      for (int d = 0; d < 7; d++) {
+        int32_t up = d < 6 ? cr[d + 1] : INF;
+        nc[d] = (!mt[d] && gpi[d]) ? std::min(cr[d], up + 1) : cr[d];
+      }
+      for (int d = 0; d < 7; d++) cr[d] = nc[d];
+    }
+    for (int d = 0; d < 7; d++) {
+      int32_t cup = d < 6 ? cr[d + 1] : INF;
+      int32_t cdm1 = d > 0 ? c[d - 1] : INF;
+      tsub[d] = !mt[d] && gpi[d] && c[d] == cr[d] - 1;
+      tgsk[d] = !mt[d] && !tsub[d] && gpi[d] && cup == cr[d] - 1;
+      trsk[d] = !mt[d] && !tsub[d] && !tgsk[d] && cdm1 == cr[d] - 1;
+      int32_t adm1 = d > 0 ? a[d - 1] : INVALID;
+      ar[d] = (mt[d] || tsub[d]) ? a[d] : (trsk[d] ? adm1 : INVALID);
+    }
+    for (int it = 0; it < 4; it++) {  // accept offset follows genome skips
+      for (int d = 0; d < 7; d++)
+        nc[d] = tgsk[d] ? (d < 6 ? ar[d + 1] : INVALID) : ar[d];
+      for (int d = 0; d < 7; d++) ar[d] = nc[d];
+    }
+    for (int d = 0; d < 7; d++) {
+      c[d] = cr[d];
+      a[d] = ar[d];
+    }
+  }
+  *out_c = c[3];
+  *out_a = a[3];
+}
+
+// (ok, errs, begin) of one candidate under the min-cost DP: ops.extend's
+// staging views + _dp_rows + the genome-start rule (graph.cc:797-798).
+static void min_cost_hit(const uint8_t* genome, int64_t glen,
+                         const uint8_t* read, int32_t rlen, int32_t g0,
+                         int32_t r0, int32_t* out_errs, int32_t* out_begin,
+                         std::vector<uint8_t>& buf) {
+  const int K = 15;
+  const int ERROR_LIMIT = 3;
+  // forward: read suffix after the seed vs genome from the seed end
+  int32_t fl = rlen - r0 - K;
+  int32_t cf, af;
+  min_cost_dir(read + r0 + K, fl, genome + g0 + K, -(int64_t)(g0 + K),
+               glen - (g0 + K), (int32_t)(glen - (g0 + K)), &cf, &af);
+  int32_t cb = 0, ab = 0;
+  if (g0 > 0) {  // backward: reversed read prefix vs reversed genome prefix
+    buf.resize((size_t)r0 + g0);
+    uint8_t* rb = buf.data();
+    uint8_t* gb = rb + r0;
+    for (int32_t j = 0; j < r0; j++) rb[j] = read[r0 - 1 - j];
+    for (int32_t x = 0; x < g0; x++) gb[x] = genome[g0 - 1 - x];
+    min_cost_dir(rb, r0, gb, 0, g0, g0, &cb, &ab);
+  }
+  bool ok = cf <= ERROR_LIMIT && cb <= ERROR_LIMIT;
+  int32_t errs = cf + cb;
+  int32_t begin = g0 - r0 - ab;
+  if (g0 == 0) {
+    ok = ok && r0 < 6;
+    errs += r0;
+    begin = -1;
+  }
+  *out_errs = ok ? errs : -1;
+  *out_begin = begin;
+}
+
 static int64_t align_window_impl(
     const uint8_t* seq, int64_t glen, int32_t read_len, int32_t offset,
     const uint64_t* fp_sorted, const int64_t* fp_off, const int32_t* fp_rids,
@@ -330,7 +428,7 @@ static int64_t align_window_impl(
     const int32_t* seed_pos,  // [R, 2] row-major (fwd, rc)
     const int32_t* row_of,    // rid -> row index in the matrices
     int32_t* out_pos, int32_t* out_ed, int32_t* out_rid, int32_t* out_or,
-    int64_t cap) {
+    int64_t cap, int32_t min_cost) {
   const int K = 15;
   if (glen < read_len || read_len == 0) return 0;
   static thread_local std::vector<std::pair<int32_t, int64_t>> cands;
@@ -352,6 +450,7 @@ static int64_t align_window_impl(
     int32_t pos, rid, ed, orient;
   };
   static thread_local std::vector<Found> found;
+  static thread_local std::vector<uint8_t> mc_buf;
   found.clear();
   for (size_t ci = 0; ci < cands.size(); ci++) {
     int32_t rid = cands[ci].first;
@@ -372,8 +471,12 @@ static int64_t align_window_impl(
       r0 = seed_pos[2 * row + 1];
     }
     int32_t errs, begin;
-    process_hit_one(seq, glen, read, read_len, (int32_t)g0, r0, &errs,
-                    &begin, visited, stamp, vdim);
+    if (min_cost)
+      min_cost_hit(seq, glen, read, read_len, (int32_t)g0, r0, &errs,
+                   &begin, mc_buf);
+    else
+      process_hit_one(seq, glen, read, read_len, (int32_t)g0, r0, &errs,
+                      &begin, visited, stamp, vdim);
     if (errs < 0) continue;
     found.push_back({begin + 1 + offset, rid, errs, orient});
   }
@@ -406,11 +509,11 @@ int64_t align_window(
     const uint8_t* codes_fwd, const uint8_t* codes_rc, int64_t stride,
     const int32_t* seed_pos, const int32_t* row_of,
     int32_t* out_pos, int32_t* out_ed, int32_t* out_rid, int32_t* out_or,
-    int64_t cap) {
+    int64_t cap, int32_t min_cost) {
   return align_window_impl(seq, glen, read_len, offset, fp_sorted, fp_off,
                            fp_rids, n_fp, codes_fwd, codes_rc, stride,
                            seed_pos, row_of, out_pos, out_ed, out_rid,
-                           out_or, cap);
+                           out_or, cap, min_cost);
 }
 
 // Many windows in one call, parallel across OS threads (windows are
@@ -425,7 +528,7 @@ void align_windows_batch(
     int64_t n_fp, const uint8_t* codes_fwd, const uint8_t* codes_rc,
     int64_t stride, const int32_t* seed_pos, const int32_t* row_of,
     const int64_t* out_off, int32_t* out_pos, int32_t* out_ed,
-    int32_t* out_rid, int32_t* out_or, int64_t* out_ns) {
+    int32_t* out_rid, int32_t* out_or, int64_t* out_ns, int32_t min_cost) {
 #pragma omp parallel for schedule(dynamic)
   for (int32_t i = 0; i < n_win; i++) {
     int64_t cap = out_off[i + 1] - out_off[i];
@@ -433,7 +536,7 @@ void align_windows_batch(
         seq_buf + seq_off[i], seq_len[i], read_len, offsets[i], fp_sorted,
         fp_off, fp_rids, n_fp, codes_fwd, codes_rc, stride, seed_pos, row_of,
         out_pos + out_off[i], out_ed + out_off[i], out_rid + out_off[i],
-        out_or + out_off[i], cap);
+        out_or + out_off[i], cap, min_cost);
   }
 }
 
@@ -1360,7 +1463,8 @@ void kmer_db_free(void* h) { delete (KmerDbResult*)h; }
 // banded_forward (same band semantics: clipped guide steps in {0,1,2},
 // fixed-width window, free start, mass at read end).  Small long-read
 // batches don't amortize an accelerator dispatch — this runs them on the
-// host (double accumulation; agrees with the f32 device kernel to ~1e-5).
+// host (double accumulation; agrees with the f32 device route to ~5e-5
+// relative on 3 kb reads).
 static inline double ladd(double a, double b) {
   if (a < b) { double t = a; a = b; b = t; }
   if (b <= -1e29) return a;

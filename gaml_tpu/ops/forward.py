@@ -36,7 +36,7 @@ def _affine_combine(left, right):
 @functools.partial(jax.jit, static_argnames=("rmax", "width"))
 def banded_forward(genome, reads, rlens, centers, gstarts, glens,
                    log_match, log_mismatch, rmax: int, width: int):
-    """Gather-free banded forward DP (the TPU-shaped formulation).
+    """Gather-free banded forward DP (the device route's formulation).
 
     The guide path is consumed as per-row steps delta in {0,1,2} (host
     clips raw center jumps; the band catches up at <=2 columns/row), so

@@ -9,7 +9,7 @@ graph.cc:1482-1537).
 
 Everything is static-shape: candidates are padded with ``valid`` masks, the
 dedup is a sort + neighbor-compare instead of a hash set, and the reduction
-is a masked segment-sum — the TPU-native shape of the reference's
+is a masked segment-sum — the static-shape form of the reference's
 hash-map + per-read loops.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from .extend import ERROR_LIMIT, extend_kernel
+from .extend import extend_kernel
 
 INT32_BIG = jnp.int32(2**31 - 1)
 
@@ -115,28 +115,3 @@ def single_end_forward(read_f, rlen_f, gwin_f, glen_f,
         log_match, log_mismatch, total_len, min_prob_per_base,
         min_prob_start, n_reads)
     return score, zero_reads, read_probs
-
-
-@functools.partial(jax.jit, static_argnames=("rmax", "n_reads"))
-def single_end_forward_pallas(read_f_t, rlen_f, gwin_f_t, glen_f,
-                              read_b_t, rlen_b, gwin_b_t, glen_b,
-                              g0, r0, valid, read_id, read_len, at_start,
-                              read_lens_all, log_match, log_mismatch,
-                              total_len, min_prob_per_base, min_prob_start,
-                              rmax: int, n_reads: int):
-    """Pallas-kernel variant of the forward step; inputs are the transposed
-    int32 staging views (see ops.extend_pallas)."""
-    from .extend_pallas import dp_rows_pallas
-
-    cf, _af = dp_rows_pallas(read_f_t, gwin_f_t, rlen_f, glen_f, rmax)
-    cb, ab = dp_rows_pallas(read_b_t, gwin_b_t, rlen_b, glen_b, rmax)
-    ok = (cf <= ERROR_LIMIT) & (cb <= ERROR_LIMIT)
-    errs = cf + cb
-    begin = g0 - r0 - ab
-    ok = jnp.where(at_start, ok & (r0 < 6), ok)
-    errs = jnp.where(at_start, errs + r0, errs)
-    begin = jnp.where(at_start, -1, begin)
-    return candidates_to_score(
-        ok, errs, begin, valid, read_id, read_len, read_lens_all,
-        log_match, log_mismatch, total_len, min_prob_per_base,
-        min_prob_start, n_reads)

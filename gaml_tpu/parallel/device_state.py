@@ -15,8 +15,7 @@ the "reads" axis:
   graph.cc:1495-1516) evaluated shard-locally and merged with psum,
   returning replicated (score, zero_reads) scalars.
 
-float64 by default (bit-comparable with the host scorer on CPU meshes and
-within 1 ulp elementwise on TPU's emulated f64); float32 opt-in for
+float64 by default (bit-comparable with the host scorer); float32 opt-in for
 throughput when the caller accepts the precision trade.
 """
 from __future__ import annotations

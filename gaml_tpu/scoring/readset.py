@@ -542,11 +542,12 @@ class ReadSet:
             self.aligment_cache[sp] = _EMPTY_COLUMNS
         bundle = getattr(self.aligner, "native_bundle", None)
         if self.backend == "device" and len(subpaths) >= 1:
-            # latency hybrid: the device extension is bit-equal to the
-            # native BFS per window (tests/test_device_candgen.py), so
-            # tiny miss batches — whose native cost is far below one chip
-            # round trip — route to the native aligner; bulk batches go
-            # to the kernel.  GAML_DEV_MIN_BASES=0 forces all-device.
+            # latency hybrid: the native min-cost DP is bit-equal to the
+            # device extension per window (tests/test_device_candgen.py),
+            # so tiny miss batches — whose native cost is far below one
+            # device round trip — route to the native aligner; bulk
+            # batches go to the kernel.  GAML_DEV_MIN_BASES=0 forces
+            # all-device.
             if bundle is not None and self._dev_min_bases > 0:
                 node_len = graph.node_len
                 est = sum(min(node_len(e), 300) for sp in subpaths
@@ -557,8 +558,8 @@ class ReadSet:
                 if not self._device_ready(graph, subpaths):
                     # cold executable: serve this batch natively
                     # (bit-identical) while a background thread runs the
-                    # SAME batch on the device — its ~45 s server-side XLA
-                    # compile happens off the critical path and later bulk
+                    # SAME batch on the device — its XLA compile happens
+                    # off the critical path and later bulk
                     # batches go straight to the warm executable.
                     # GAML_DEV_EAGER=1 restores always-block-on-device.
                     self._precompute_native_batch(graph, subpaths, bundle)
@@ -609,7 +610,9 @@ class ReadSet:
         return ready
 
     def _precompute_native_batch(self, graph, subpaths, bundle) -> None:
-        """One native call, OpenMP-parallel across windows."""
+        """One native call, OpenMP-parallel across windows.  The device
+        backend's batches use the native min-cost DP, bit-identical to
+        the device kernel, so results never depend on the route."""
         from ..align.aligner import spell_subpath
         from ..native import align_windows_batch
 
@@ -622,7 +625,8 @@ class ReadSet:
         for (sp, _s, _o), res in zip(
                 todo, align_windows_batch(bundle,
                                           [t[1] for t in todo],
-                                          [t[2] for t in todo])):
+                                          [t[2] for t in todo],
+                                          min_cost=self.backend == "device")):
             self.aligment_cache[sp] = AlignmentColumns(*res)
 
     def get_alignment_for_subpath(self, subpath: Subpath) -> AlignmentColumns:

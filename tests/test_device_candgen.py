@@ -1,6 +1,6 @@
 """Native candidate generation + vectorized staging for the device
 backend: must match the Python gen_candidates / python-staged batch path
-exactly (VERDICT round-1 item 3: move candidate generation off Python)."""
+exactly (candidate generation off Python)."""
 import numpy as np
 
 from gaml_tpu.align.aligner import gen_candidates, spell_subpath
@@ -100,15 +100,13 @@ def test_device_extender_matches_host_staging(tmp_path):
 
 
 def test_device_extender_sorted_dynamic_matches_host(tmp_path, monkeypatch):
-    """The sorted-dynamic pallas path (SWAR forward cost + dynamic-rows
-    register backward, candidates block-laid by r0) must agree with the
-    host-staged exact path on every consumed value: ok everywhere,
-    errs/begin wherever ok.  Runs the real fused code in pallas
-    interpret mode; exercises multi-chunk dispatch + the scatter back to
-    caller order on both the packed and return_device routes."""
+    """The kernel route of DeviceExtender (candidates sorted by r0, the
+    GPU kernel in interpret mode) must agree with the host-staged exact
+    path on every consumed value: ok everywhere, errs/begin wherever ok.
+    Exercises multi-chunk dispatch + the scatter back to caller order on
+    both the packed and return_device routes."""
     from gaml_tpu.ops.extend import extend_staged, stage_candidates_uniform
     from gaml_tpu.ops.extend_device import DeviceExtender
-    from gaml_tpu.ops.extend_pallas import BLOCK_CANDS
 
     rng = np.random.default_rng(3)
     gr, seqs_l = make_linear_graph(rng, [900, 80, 700, 90, 600])
@@ -131,25 +129,26 @@ def test_device_extender_sorted_dynamic_matches_host(tmp_path, monkeypatch):
     np.cumsum(seq_lens[:-1], out=seq_base[1:])
     seq_buf = np.concatenate(seqs)
     rows = bundle.row_of[rid]
-    assert len(rid) > BLOCK_CANDS  # the sorted path must engage
+    chunk = 4096
+    assert len(rid) > chunk  # several chunks
 
     st = stage_candidates_uniform(seq_buf, seq_base, seq_lens, seq_idx,
                                   g0, r0, rows, orient, bundle.codes_fwd,
                                   bundle.codes_rc, read_ids=rid)
     ok_h, errs_h, begin_h = extend_staged(st, use_pallas=False)
 
-    monkeypatch.setenv("GAML_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("GAML_DEV_CHUNK", str(BLOCK_CANDS))  # multi-chunk
+    monkeypatch.setenv("GAML_DEV_CHUNK", str(chunk))  # multi-chunk
     ext = DeviceExtender(bundle.codes_fwd, bundle.codes_rc)
     ok_d, errs_d, begin_d = ext.run(seq_buf, seq_base, seq_lens, seq_idx,
-                                    g0, r0, rows, orient, use_pallas=True)
+                                    g0, r0, rows, orient, use_pallas=True,
+                                    interpret=True)
     assert np.array_equal(ok_h, ok_d)
     assert np.array_equal(errs_h[ok_h], errs_d[ok_d])
     assert np.array_equal(begin_h[ok_h], begin_d[ok_d])
 
     okD, errsD, beginD = ext.run(seq_buf, seq_base, seq_lens, seq_idx,
                                  g0, r0, rows, orient, use_pallas=True,
-                                 return_device=True)
+                                 return_device=True, interpret=True)
     okD = np.asarray(okD)[:len(rid)]
     assert np.array_equal(ok_h, okD)
     assert np.array_equal(errs_h[ok_h], np.asarray(errsD)[:len(rid)][okD])
@@ -158,66 +157,44 @@ def test_device_extender_sorted_dynamic_matches_host(tmp_path, monkeypatch):
 
 
 def test_sorted_dynamic_kernels_bit_exact():
-    """Unit-level parity of the sorted-dynamic kernels against the
-    static pallas kernel (interpret mode): the dynamic-rows register
-    kernel is bit-equal on (c, a); the SWAR cost kernel matches under
-    its saturated contract (exact <= 6, clamped at 7)."""
+    """Row bounds come from each block's own rlen: a block whose rows
+    are all short stops early, and a block sorted by rlen or shuffled
+    gives the same per-candidate results (interpret mode), equal to
+    _dp_rows under the kernel's saturated contract."""
     import jax.numpy as jnp
 
-    from gaml_tpu.ops.extend import PAD
-    from gaml_tpu.ops.extend_pallas import (
-        BLOCK_CANDS, block_bounds, block_layout, dp_rows_pallas,
-        dp_rows_pallas_reg_dyn, swar_cost_pallas)
+    from gaml_tpu.ops.extend import PAD, _dp_rows
+    from gaml_tpu.ops.extend_pallas import BLOCK, dp_kernel
 
     rng = np.random.default_rng(0)
-    n, rmax = BLOCK_CANDS, 32
-    read_np = rng.integers(0, 5, (rmax, n)).astype(np.int32)
-    gwin_np = rng.integers(0, 5, (rmax + 2 * PAD, n)).astype(np.int32)
-    gwin_np[PAD:PAD + rmax, : n // 2] = read_np[:, : n // 2]
+    n, rmax = 4 * BLOCK, 32
+    read_np = rng.integers(0, 5, (n, rmax)).astype(np.uint8)
+    gwin_np = rng.integers(0, 5, (n, rmax + 2 * PAD)).astype(np.uint8)
+    gwin_np[: n // 2, PAD:PAD + rmax] = read_np[: n // 2]
     gwin_np[gwin_np == 4] = 8  # genome sentinel
     read_np[read_np == 4] = 6  # read sentinel
     rlen_np = rng.integers(0, rmax + 1, n).astype(np.int32)
     glen_np = rng.integers(0, rmax + PAD, n).astype(np.int32)
 
-    c_ref, a_ref = dp_rows_pallas(
-        jnp.asarray(read_np), jnp.asarray(gwin_np),
-        jnp.asarray(rlen_np[None, :]), jnp.asarray(glen_np[None, :]),
-        rmax, interpret=True)
-    c_ref, a_ref = np.asarray(c_ref), np.asarray(a_ref)
+    c_ref, a_ref = _dp_rows(jnp.asarray(read_np), jnp.asarray(rlen_np),
+                            jnp.asarray(gwin_np), jnp.asarray(glen_np),
+                            rmax)
+    c_ref, a_ref = np.asarray(c_ref)[:, 3], np.asarray(a_ref)[:, 3]
 
-    order = np.argsort(rlen_np, kind="stable")
-    perm = order[block_layout(n)]
-    nrows = block_bounds(rlen_np[order])
-    inv = np.empty(n, np.int64)
-    inv[perm] = np.arange(n)
-
-    c_d, a_d = dp_rows_pallas_reg_dyn(
-        jnp.asarray(read_np[:, perm]), jnp.asarray(gwin_np[:, perm]),
-        jnp.asarray(rlen_np[perm]), jnp.asarray(glen_np[perm]), rmax,
-        jnp.asarray(nrows), interpret=True)
-    assert np.array_equal(np.asarray(c_d)[inv], c_ref)
-    assert np.array_equal(np.asarray(a_d)[inv], a_ref)
-
-    c7 = np.asarray(swar_cost_pallas(
-        jnp.asarray(read_np[:, perm]), jnp.asarray(gwin_np[:, perm]),
-        jnp.asarray(rlen_np[perm]), jnp.asarray(glen_np[perm]), rmax,
-        jnp.asarray(nrows), interpret=True))
-    assert np.array_equal(c7[inv], np.minimum(c_ref, 7))
-
-    # round-5 backward SWAR kernel: cost under the same saturated
-    # contract; accept offset bit-equal wherever the cost is unsaturated
-    # (every consumer reads a only for ok = cost <= 3 candidates)
-    from gaml_tpu.ops.extend_pallas import swar_cost_accept_pallas
-
-    ca, aa = swar_cost_accept_pallas(
-        jnp.asarray(read_np[:, perm]), jnp.asarray(gwin_np[:, perm]),
-        jnp.asarray(rlen_np[perm]), jnp.asarray(glen_np[perm]), rmax,
-        jnp.asarray(nrows), interpret=True)
-    ca, aa = np.asarray(ca)[inv], np.asarray(aa)[inv]
-    assert np.array_equal(ca, np.minimum(c_ref, 7))
-    m = c_ref <= 6
-    assert m.sum() > n // 4
-    assert np.array_equal(aa[m], a_ref[m])
+    for perm in (np.arange(n), np.argsort(rlen_np, kind="stable"),
+                 rng.permutation(n)):
+        inv = np.empty(n, np.int64)
+        inv[perm] = np.arange(n)
+        c, a = dp_kernel(jnp.asarray(read_np[perm]),
+                         jnp.asarray(rlen_np[perm]),
+                         jnp.asarray(gwin_np[perm]),
+                         jnp.asarray(glen_np[perm]), rmax, accept=True,
+                         interpret=True)
+        c, a = np.asarray(c)[inv], np.asarray(a)[inv]
+        assert np.array_equal(c, np.minimum(c_ref, 7))
+        m = c_ref <= 6
+        assert m.sum() > n // 4
+        assert np.array_equal(a[m], a_ref[m])
 
 
 def test_stage_uniform_matches_stage_candidates(tmp_path):
@@ -302,52 +279,42 @@ def test_cold_executable_cost_model_routing(tmp_path, monkeypatch):
     assert len(calls) > n_before  # warm: bulk routed to the device path
 
 
-def test_warmup_transient_failure_retries_then_goes_device():
-    """A transient warm-up failure must NOT pin the route for the process
-    lifetime: the next batch's device_ready re-attempts with its own
-    warm_fn, and once an attempt succeeds the route goes device."""
+def test_warmup_failure_raises_instead_of_pinning_native():
+    """A warm-up that raises is a broken device route: the next
+    device_ready call for the key raises it (no retries, no silent
+    native pin), and every later call keeps raising."""
     from gaml_tpu.utils import warmup
 
-    key = ("test_warmup_retry", 1)
+    key = ("test_warmup_raise", 1)
     calls = []
 
     def bad():
         calls.append("bad")
-        raise RuntimeError("transient tunnel error")
-
-    def good():
-        calls.append("good")
+        raise RuntimeError("compile failed")
 
     assert warmup.device_ready(key, bad) is False
     for th in list(warmup._THREADS):
         th.join(5)
-    # failed once -> a later batch retries with its warm_fn
-    assert warmup.device_ready(key, good) is False
-    for th in list(warmup._THREADS):
-        th.join(5)
-    assert warmup.device_ready(key, good) is True
-    assert calls == ["bad", "good"]
+    for _ in range(2):
+        with pytest.raises(warmup.WarmupError, match="compile failed"):
+            warmup.device_ready(key, bad)
+    assert calls == ["bad"]
 
 
-def test_warmup_exhausted_retries_pin_native(monkeypatch):
-    """Once the bounded attempt budget is spent the key pins to failed:
-    the router keeps answering False (native route) without starting new
-    threads."""
+def test_warmup_success_goes_device():
+    """A warm-up that succeeds flips its key to ready exactly once, and
+    a failure recorded by an explicit prewarm raises like a thread's."""
     from gaml_tpu.utils import warmup
 
-    monkeypatch.setenv("GAML_WARMUP_RETRIES", "1")  # 2 total attempts
-    key = ("test_warmup_pin", 1)
+    key = ("test_warmup_ok", 1)
     calls = []
+    assert warmup.device_ready(key, lambda: calls.append(1)) is False
+    for th in list(warmup._THREADS):
+        th.join(5)
+    assert warmup.device_ready(key, lambda: calls.append(2)) is True
+    assert calls == [1]
 
-    def bad():
-        calls.append(1)
-        raise RuntimeError("boom")
-
-    for _ in range(2):
-        assert warmup.device_ready(key, bad) is False
-        for th in list(warmup._THREADS):
-            th.join(5)
-    assert warmup.device_ready(key, bad) is False
-    assert warmup._STATE[key] == ("failed", 2)
-    assert warmup.device_ready(key, bad) is False  # pinned: no new attempt
-    assert len(calls) == 2
+    key2 = ("test_warmup_marked", 1)
+    warmup.mark_failed(key2, ValueError("prewarm broke"))
+    with pytest.raises(warmup.WarmupError, match="prewarm broke"):
+        warmup.device_ready(key2, lambda: None)

@@ -1,5 +1,5 @@
 """The REAL scoring pipeline under multiprocess JAX (SURVEY.md section
-4(e) / VERDICT round-1 item 4): two OS processes, each indexing only its
+4(e)): two OS processes, each indexing only its
 own read shard, run the sharded single-end scorer over one global mesh;
 the psum-merged score must equal the single-process score.
 """

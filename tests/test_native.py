@@ -117,8 +117,10 @@ def test_native_reachability_matches_python():
     assert gr.reach_big == gr_py.reach_big
 
 
-def test_align_windows_batch_matches_serial(tmp_path):
-    """OpenMP batch alignment == serial align_window per window."""
+@pytest.mark.parametrize("min_cost", [False, True])
+def test_align_windows_batch_matches_serial(tmp_path, min_cost):
+    """OpenMP batch alignment == serial align_window per window (both
+    extensions: the 0-1 BFS and the min-cost DP)."""
     from fixtures import sample_reads, write_fastq
     from gaml_tpu.scoring.readset import ReadSet
 
@@ -136,12 +138,88 @@ def test_align_windows_batch_matches_serial(tmp_path):
             for a, ln in ((0, 200), (100, 400), (700, 90), (1500, 800),
                           (40, 61), (2900, 100))]
     offsets = [5, 0, 17, 3, 0, 2]
-    batch = native.align_windows_batch(bundle, seqs, offsets)
+    batch = native.align_windows_batch(bundle, seqs, offsets,
+                                       min_cost=min_cost)
     assert len(batch) == len(seqs)
     for seq, off, got in zip(seqs, offsets, batch):
-        exp = native.align_window(bundle, seq, off)
+        exp = native.align_window(bundle, seq, off, min_cost=min_cost)
         for a, b in zip(got, exp):
             np.testing.assert_array_equal(a, b)
+
+
+def _indel_reads(rng, genome, n, read_len, err):
+    """Reads with substitutions, insertions and deletions (rate ``err``
+    each), both strands — the cases where the 0-1 BFS and the min-cost
+    DP can disagree."""
+    out = []
+    for _ in range(n):
+        p = int(rng.integers(0, len(genome) - 2 * read_len))
+        r, g = [], p
+        while len(r) < read_len:
+            u = rng.random()
+            if u < err:
+                r.append("ACGT"[int(rng.integers(0, 4))])
+                g += 1
+            elif u < 2 * err:
+                r.append("ACGT"[int(rng.integers(0, 4))])
+            elif u < 3 * err:
+                g += 1
+            else:
+                r.append(genome[g])
+                g += 1
+        s = "".join(r)
+        out.append(dna.revcomp_str(s) if rng.random() < 0.5 else s)
+    return out
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_min_cost_window_matches_device_route(tmp_path, seed):
+    """align_window(min_cost=True) is bit-identical to the device
+    backend's route (native candidate query -> staged jnp banded DP ->
+    first-wins (position, read) dedup), so the device backend's results
+    never depend on which route served a batch."""
+    from fixtures import write_fastq
+    from gaml_tpu.ops.extend import extend_staged, stage_candidates_uniform
+    from gaml_tpu.scoring.readset import ReadSet
+
+    rng = np.random.default_rng(seed)
+    genome = random_seq(rng, 4000)
+    fq = tmp_path / "mc.fastq"
+    write_fastq(str(fq), _indel_reads(rng, genome, 600, 60, 0.02))
+    rs = ReadSet(str(tmp_path / "mc"), str(fq), 0.96, 0.01)
+    rs.preprocess_reads()
+    rs.prepare_read_index()
+    bundle = rs.aligner.native_bundle
+    seq = dna.encode_seq(genome)
+    offset = 7
+
+    (rid, g0, r0, orient), = native.query_windows_batch(bundle, [seq])
+    n = len(rid)
+    st = stage_candidates_uniform(
+        seq, np.zeros(1, np.int64), np.array([len(seq)]),
+        np.zeros(n, np.int64), g0, r0, bundle.row_of[rid], orient,
+        bundle.codes_fwd, bundle.codes_rc, read_ids=rid)
+    ok, errs, begin = extend_staged(st, use_pallas=False)
+    pos = begin.astype(np.int64) + 1 + offset
+    seen, want = set(), []
+    for i in np.nonzero(ok)[0]:  # emission order: first insert wins
+        if (pos[i], rid[i]) not in seen:
+            seen.add((pos[i], rid[i]))
+            want.append((pos[i], rid[i], errs[i], orient[i]))
+    want.sort(key=lambda t: (t[0], t[1]))
+    got = native.align_window(bundle, seq, offset, min_cost=True)
+    assert len(want) > 150
+    np.testing.assert_array_equal(got[0], [w[0] for w in want])
+    np.testing.assert_array_equal(got[2], [w[1] for w in want])
+    np.testing.assert_array_equal(got[1], [w[2] for w in want])
+    np.testing.assert_array_equal(got[3], [w[3] for w in want])
+    # the BFS charges some indel alignments more (never less): the
+    # world exercises the difference
+    bfs = native.align_window(bundle, seq, offset)
+    cost = {(p, r): e for p, r, e in zip(bfs[0], bfs[2], bfs[1])}
+    fewer = [cost.get((p, r), e) - e for p, r, e in
+             zip(got[0], got[2], got[1])]
+    assert min(fewer) >= 0 and max(fewer) > 0
 
 
 def test_coverage_sweep_matches_python():

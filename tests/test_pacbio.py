@@ -114,78 +114,79 @@ def test_production_band_vs_exact_reference_band(tmp_path):
     assert sp == pytest.approx(se, rel=0.02), (sp, se)
 
 
+def _device_route_on(monkeypatch):
+    """Take the GPU platform's forward-DP route on the CPU: the route is
+    plain jnp (ops.forward.banded_forward), so the same code runs."""
+    monkeypatch.setattr(PacbioReadSet, "_device_route",
+                        staticmethod(lambda: True))
+
+
+def _spy_forward(monkeypatch, calls, fail=False):
+    import gaml_tpu.ops.forward as fwd
+
+    real = fwd.banded_forward
+
+    def spy(genome, reads, *a):
+        calls.append((tuple(reads.shape), int(genome.shape[0]), a[-2:]))
+        if fail:
+            raise RuntimeError("device compile failed")
+        return real(genome, reads, *a)
+
+    monkeypatch.setattr(fwd, "banded_forward", spy)
+
+
+def _assert_matches_native(pos_nat, pos_dev):
+    for p_n, p_d in zip(pos_nat, pos_dev):
+        assert len(p_n) == len(p_d)
+        for (sp_n, lp_n), (sp_d, lp_d) in zip(p_n, p_d):
+            assert sp_n == sp_d
+            # f32 device accumulation vs the f64 native kernel
+            assert lp_d == pytest.approx(lp_n, rel=1e-4, abs=1e-3)
+
+
 def test_forward_batch_chunked_device_route(tmp_path, monkeypatch):
     """The device route chunks every forward batch to ONE fixed
     (GAML_PB_CHUNK, rmax-class) dispatch shape (tail rounds up, read axis
-    pads to the read set's longest read) and reassembles chunk outputs in
-    job order — scores must match the native route and every dispatch must
-    carry the same shape (one compiled executable for the whole run)."""
-    import jax.numpy as jnp
-
-    import gaml_tpu.ops.forward_pallas as fp
-    from gaml_tpu.ops.forward import banded_forward
-
+    pads to the read set's longest read, walk buffer pads to its bucket)
+    and reassembles chunk outputs in job order — scores must match the
+    native f64 route and every dispatch must carry the same shape (one
+    compiled executable for the whole run)."""
     rng = np.random.default_rng(21)
     gr, seqs = make_linear_graph(rng, [900, 120, 1200])
     rs_nat, _ = make_pb_readset(tmp_path, gr, seqs, np.random.default_rng(9),
                                 n_reads=160, rlen=400, err=0.08, name="pbc_n")
     rs_dev, _ = make_pb_readset(tmp_path, gr, seqs, np.random.default_rng(9),
                                 n_reads=160, rlen=400, err=0.08, name="pbc_d")
-    rs_nat.forward_width = 128  # native baseline on the pallas band width
-    rs_dev.forward_width = 128
     walk = [0, 2, 4]
     pos_nat, tl_nat = rs_nat.get_read_probabilities(gr, walk)
 
     calls = []
-
-    def fake_pallas(genome, reads, rlens, centers, gstarts, glens,
-                    log_match, log_mismatch, rmax, width=128,
-                    interpret=False, return_device=False):
-        calls.append((reads.shape, int(rmax)))
-        out = np.asarray(banded_forward(
-            jnp.asarray(genome), jnp.asarray(np.asarray(reads)),
-            jnp.asarray(np.asarray(rlens, dtype=np.int32)),
-            jnp.asarray(centers), jnp.asarray(gstarts), jnp.asarray(glens),
-            float(log_match), float(log_mismatch), int(rmax), 128))
-        return out  # padded [chunk] array; caller slices live rows
-
-    monkeypatch.setattr(fp, "banded_forward_pallas", fake_pallas)
-    monkeypatch.setenv("GAML_PB_FORCE_DEVICE", "1")
+    _spy_forward(monkeypatch, calls)
+    _device_route_on(monkeypatch)
     monkeypatch.setenv("GAML_PB_DEVICE_MIN_CELLS", "0")
     monkeypatch.setenv("GAML_DEV_EAGER", "1")
-    monkeypatch.setenv("GAML_PB_CHUNK", "1")  # rounds up to LANES=128
-    monkeypatch.setenv("GAML_PB_RESIDENT", "0")  # dense-staging route
+    monkeypatch.setenv("GAML_PB_CHUNK", "32")
 
     pos_dev, tl_dev = rs_dev.get_read_probabilities(gr, walk)
     assert calls, "device route never dispatched"
-    shapes = {c[0] for c in calls}
-    rmaxes = {c[1] for c in calls}
-    assert len(shapes) == 1 and len(rmaxes) == 1, (shapes, rmaxes)
-    (shape,), (rmax_cls,) = shapes, rmaxes
-    assert shape == (128, rmax_cls)
-    assert rmax_cls % 128 == 0
-    max_rlen = max(len(r) for r in rs_dev.read_seq)
-    assert rmax_cls >= max_rlen
-    # multi-chunk: the anchored batch must have exceeded one chunk
-    assert len(calls) >= 2
-    assert rs_dev.dp_cells.get("pallas", 0) > 0
+    assert len(set(calls)) == 1, set(calls)
+    (shape, g_pad, (rmax_cls, width)), = set(calls)
+    assert shape == (32, rmax_cls) and rmax_cls % 128 == 0
+    assert rmax_cls >= max(len(r) for r in rs_dev.read_seq)
+    assert g_pad == PacbioReadSet.seq_bucket(sum(len(x) for x in seqs))
+    assert width == rs_dev.forward_width
+    assert len(calls) >= 2  # the anchored batch exceeded one chunk
+    assert rs_dev.dp_cells.get("device", 0) > 0
     assert not rs_dev.dp_cells.get("native")
-
     assert tl_dev == tl_nat
-    for p_n, p_d in zip(pos_nat, pos_dev):
-        assert len(p_n) == len(p_d)
-        for (sp_n, lp_n), (sp_d, lp_d) in zip(p_n, p_d):
-            assert sp_n == sp_d
-            assert lp_d == pytest.approx(lp_n, rel=1e-4, abs=1e-3)
+    _assert_matches_native(pos_nat, pos_dev)
 
 
-def test_forward_batch_resident_route_matches_native(tmp_path, monkeypatch):
-    """The resident-read device route (ops.forward_device: read rows
-    live on the chip, dispatches ship 2-bit band steps + per-job
-    metadata, all other staging derived on device) must reproduce the
-    native route's positions/logprobs through the REAL staging + pallas
-    kernel (interpret mode), including the chunked multi-dispatch and
-    the prewarm router marking."""
+def test_device_route_after_prewarm_matches_native(tmp_path, monkeypatch):
+    """Without GAML_DEV_EAGER the warm-up router gates the device route:
+    after prewarm_device marks the read set's executables ready, walk
+    batches go to the device (no native cells) and match the native
+    f64 route."""
     from gaml_tpu.utils import warmup
 
     rng = np.random.default_rng(77)
@@ -194,99 +195,49 @@ def test_forward_batch_resident_route_matches_native(tmp_path, monkeypatch):
                                 n_reads=60, rlen=300, err=0.08, name="pbr_n")
     rs_dev, _ = make_pb_readset(tmp_path, gr, seqs, np.random.default_rng(5),
                                 n_reads=60, rlen=300, err=0.08, name="pbr_d")
-    rs_nat.forward_width = 128
-    rs_dev.forward_width = 128
     walk = [0, 2, 4]
     pos_nat, tl_nat = rs_nat.get_read_probabilities(gr, walk)
 
-    monkeypatch.setenv("GAML_PB_FORCE_DEVICE", "1")
+    _device_route_on(monkeypatch)
     monkeypatch.setenv("GAML_PB_DEVICE_MIN_CELLS", "0")
-    monkeypatch.setenv("GAML_DEV_EAGER", "1")
-    monkeypatch.setenv("GAML_PB_CHUNK", "1")  # rounds up to 128
-    monkeypatch.setenv("GAML_PALLAS_INTERPRET", "1")
+    monkeypatch.delenv("GAML_DEV_EAGER", raising=False)
+    monkeypatch.setenv("GAML_PB_CHUNK", "16")
+    monkeypatch.setenv("GAML_PB_PREWARM_SMAX", "32768")
 
     rs_dev.prewarm_device()
-    rmax_cls = rs_dev._dev_rmax_class
-    eng = getattr(rs_dev, "_fwd_engine", None)
-    assert eng is not None and eng.rmax_cls == rmax_cls
-    warm_keys = [k for k in warmup._STATE
-                 if k[:3] == ("pb_forward", 128, rmax_cls)]
-    assert warm_keys and warmup._STATE[warm_keys[0]] is True
+    assert rs_dev.dp_cells == {}
+    key = rs_dev._warm_key(16, rs_dev._dev_rmax_class,
+                           sum(len(x) for x in seqs), rs_dev.forward_width)
+    assert warmup._STATE.get(key) is True
 
     pos_dev, tl_dev = rs_dev.get_read_probabilities(gr, walk)
-    assert rs_dev.dp_cells.get("pallas", 0) > 0
+    assert rs_dev.dp_cells.get("device", 0) > 0
     assert not rs_dev.dp_cells.get("native")
-    assert rs_dev._fwd_engine is eng  # resident matrices uploaded once
-
     assert tl_dev == tl_nat
-    for p_n, p_d in zip(pos_nat, pos_dev):
-        assert len(p_n) == len(p_d)
-        for (sp_n, lp_n), (sp_d, lp_d) in zip(p_n, p_d):
-            assert sp_n == sp_d
-            assert lp_d == pytest.approx(lp_n, rel=1e-4, abs=1e-3)
+    _assert_matches_native(pos_nat, pos_dev)
 
 
-def test_resident_staging_bit_equal_dense(monkeypatch):
-    """Unit parity: the engine's on-device staging derivations feed the
-    kernel the SAME arrays the dense host prestaging ships — outputs are
-    bit-identical between ops.forward_device and banded_forward_pallas
-    on random jobs (interpret mode)."""
-    import jax.numpy as jnp
+def test_prewarm_failure_raises(tmp_path, monkeypatch):
+    """A device compile that fails in the prewarm raises there, and a
+    later batch that needs the executable raises too — it is never
+    served natively for the rest of the run."""
+    from gaml_tpu.utils import warmup
 
-    from gaml_tpu.core import dna
-    from gaml_tpu.ops.forward_device import ForwardDeviceEngine
-    from gaml_tpu.ops.forward_pallas import banded_forward_pallas
-
-    monkeypatch.setenv("GAML_PALLAS_INTERPRET", "1")
-    rng = np.random.default_rng(3)
-    rmax_cls = 128
-    seq = rng.integers(0, 4, 700).astype(np.uint8)
-    n_reads, c = 10, 128
-    read_seqs = [rng.integers(0, 5, rng.integers(60, rmax_cls + 1))
-                 .astype(np.uint8) for _ in range(n_reads)]
-    rid = rng.integers(0, n_reads, c).astype(np.int32)
-    strand = rng.integers(0, 2, c).astype(np.uint8)
-    rlens = np.array([len(read_seqs[r]) for r in rid], np.int32)
-    centers = np.zeros((c, rmax_cls + 1), np.int32)
-    for i in range(c):
-        p = int(rng.integers(0, 300))
-        steps = rng.integers(0, 3, rmax_cls)
-        centers[i] = np.clip(p + np.concatenate([[0], np.cumsum(steps)]),
-                             0, len(seq))
-    gstarts = rng.integers(0, 50, c).astype(np.int32)
-    glens = np.minimum(len(seq) - gstarts,
-                       rng.integers(300, 650, c)).astype(np.int32)
-    lm, lmm = float(np.log(0.9)), float(np.log(0.03))
-
-    reads_dense = np.full((c, rmax_cls), 6, np.uint8)
-    for i in range(c):
-        q = read_seqs[rid[i]] if strand[i] == 0 else \
-            dna.revcomp(read_seqs[rid[i]])
-        reads_dense[i, :len(q)] = q
-    want = banded_forward_pallas(seq, reads_dense, rlens, centers,
-                                 gstarts, glens, lm, lmm, rmax_cls,
-                                 interpret=True)
-
-    eng = ForwardDeviceEngine(read_seqs, rmax_cls)
-    got = np.asarray(eng.dispatch(eng.prepare_seq(seq), rid, strand,
-                                  rlens, centers, gstarts, glens,
-                                  lm, lmm))[:c]
-    assert np.array_equal(got, np.asarray(want)[:c])
-
-
-def test_resident_cap_falls_back_to_dense(tmp_path, monkeypatch):
-    """When the resident packed read matrices would exceed
-    GAML_PB_RESIDENT_MAX, _ensure_fwd_engine returns None and the device
-    route keeps working on dense staging."""
-    rng = np.random.default_rng(5)
-    gr, seqs = make_linear_graph(rng, [500, 80, 450])
-    rs, _ = make_pb_readset(tmp_path, gr, seqs, rng, n_reads=4, rlen=200,
-                            name="cap")
-    monkeypatch.setenv("GAML_PB_RESIDENT_MAX", "0")
-    assert rs._ensure_fwd_engine(256) is None
-    monkeypatch.delenv("GAML_PB_RESIDENT_MAX")
-    eng = rs._ensure_fwd_engine(256)
-    assert eng is not None and eng.rmax_cls == 256
+    rng = np.random.default_rng(41)
+    gr, seqs = make_linear_graph(rng, [600, 80, 700])
+    rs, _ = make_pb_readset(tmp_path, gr, seqs, rng, n_reads=8, rlen=300,
+                            name="pbf")
+    calls = []
+    _spy_forward(monkeypatch, calls, fail=True)
+    _device_route_on(monkeypatch)
+    monkeypatch.setenv("GAML_PB_CHUNK", "8")
+    monkeypatch.setenv("GAML_PB_DEVICE_MIN_CELLS", "0")
+    monkeypatch.delenv("GAML_DEV_EAGER", raising=False)
+    monkeypatch.setenv("GAML_PB_PREWARM_SMAX", "32768")
+    with pytest.raises(RuntimeError, match="device compile failed"):
+        rs.prewarm_device()
+    with pytest.raises(warmup.WarmupError):
+        rs.get_read_probabilities(gr, [0, 2, 4])
 
 
 def test_f32_route_anneal_quality_bound(tmp_path, monkeypatch):
@@ -355,11 +306,10 @@ REPO_TOOLS = _os_p.path.join(_os_p.path.dirname(_os_p.path.dirname(
 
 
 def test_prewarm_device_marks_router_ready(tmp_path, monkeypatch):
-    """prewarm_device dispatches exactly one full dummy chunk eagerly,
-    marks the warm-up router's (chunk, rmax-class) key ready, restores
-    the routing env vars, and clears the profiling counters; without the
-    device force flag it must no-op on CPU platforms."""
-    import gaml_tpu.ops.forward_pallas as fp
+    """prewarm_device dispatches exactly one full dummy chunk per walk
+    bucket eagerly, marks each warm-up-router key ready, leaves the
+    routing env vars alone and clears the profiling counters; off the
+    device route (the CPU platform) it is a no-op."""
     from gaml_tpu.utils import warmup
 
     rng = np.random.default_rng(33)
@@ -367,32 +317,24 @@ def test_prewarm_device_marks_router_ready(tmp_path, monkeypatch):
     rs, _ = make_pb_readset(tmp_path, gr, seqs, rng, n_reads=6, rlen=300,
                             name="pbw")
     calls = []
+    _spy_forward(monkeypatch, calls)
+    monkeypatch.setenv("GAML_PB_CHUNK", "4")
+    monkeypatch.setenv("GAML_PB_PREWARM_SMAX", "131072")
 
-    def fake_pallas(genome, reads, rlens, centers, gstarts, glens,
-                    log_match, log_mismatch, rmax, width=128,
-                    interpret=False, return_device=False):
-        calls.append((reads.shape, int(rmax)))
-        return np.zeros(reads.shape[0], dtype=np.float32)
-
-    monkeypatch.setattr(fp, "banded_forward_pallas", fake_pallas)
-    monkeypatch.setenv("GAML_PB_CHUNK", "1")  # rounds up to 128
-    monkeypatch.setenv("GAML_PB_RESIDENT", "0")  # dense-staging route
-
-    # CPU platform, no force flag: no-op
-    monkeypatch.delenv("GAML_PB_FORCE_DEVICE", raising=False)
-    rs.prewarm_device()
+    rs.prewarm_device()  # CPU platform: no device route
     assert not calls
 
-    monkeypatch.setenv("GAML_PB_FORCE_DEVICE", "1")
+    _device_route_on(monkeypatch)
     monkeypatch.setenv("GAML_PB_DEVICE_MIN_CELLS", "999999999")
     eager_before = os_mod.environ.get("GAML_DEV_EAGER")
     rs.prewarm_device()
-    assert len(calls) == 1
-    (shape, rmax_cls), = calls
-    assert shape[0] == 128 and rmax_cls % 128 == 0
-    assert warmup._STATE.get(("pb_forward", 128, rmax_cls)) is True
+    assert [c[1] for c in calls] == [32768, 131072]
+    assert {c[0] for c in calls} == {(4, rs._dev_rmax_class)}
+    for g_pad in (32768, 131072):
+        key = ("pb_forward", 4, rs._dev_rmax_class, g_pad,
+               rs.forward_width)
+        assert warmup._STATE.get(key) is True
     assert rs.dp_cells == {}
-    # the temporarily-forced routing env vars are restored
     assert os_mod.environ.get("GAML_PB_DEVICE_MIN_CELLS") == "999999999"
     assert os_mod.environ.get("GAML_DEV_EAGER") == eager_before
 

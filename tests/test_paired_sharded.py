@@ -1,6 +1,6 @@
 """Sharded paired-end scoring vs the host incremental (live-path) scorer.
 
-SURVEY.md section 5.8 / VERDICT round-1 item 2: the paired pipeline's pair
+SURVEY.md section 5.8: the paired pipeline's pair
 products + floored reduction run under shard_map with psum/psum_scatter
 over the mesh "reads" axis; scores must equal the production host scorer
 (calc_score_for_paths_incremental, reference graph.cc:1952-1989) on the
@@ -110,7 +110,7 @@ def test_prob_calculator_sharded_paired(tmp_path, x64):
 
 def test_stage_rows_no_truncation(tmp_path, x64):
     """Every (walk, read) row is staged with ALL its positions — the
-    VERDICT k_cap=12 silent-drop fix."""
+    fix for a silent drop past k_cap=12."""
     gr, rs1, rs2, im, istd = _world(tmp_path, seed=7, n_pairs=40)
     paths = [[0, 2, 4, 6, 8], [0, 2, 4]]
     buckets, walk_events, total_len = stage_paired_rows(gr, paths, rs1, rs2,
@@ -162,7 +162,7 @@ def test_collect_walk_rows_python_fallback(tmp_path, x64, monkeypatch):
 
 
 def test_incremental_sharded_matches_host_sequence(tmp_path, x64):
-    """VERDICT r2 item 4: the mesh-backed incremental scorer — signed
+    """The mesh-backed incremental scorer — signed
     per-walk deltas psum_scatter'd into DeviceScoringState — tracks the
     host incremental scorer across a whole move sequence (adds, erases,
     duplicated walks, gaps), per-step and with persistent state."""

@@ -311,7 +311,7 @@ cache_prefix={tmp_path}/bc2
 
 def test_reference_adversarial_walkset_full_rescore(tmp_path,
                                                     reference_binary):
-    """Adversarial walk-set differential (VERDICT round-1 item 6): the
+    """Adversarial walk-set differential: the
     bootstrap path feeds the reference a multi-walk set containing gap
     entries, an EXACT duplicate walk, and a reverse-complement reuse of
     another walk's nodes — so the incremental paired scorer's add path
@@ -419,7 +419,7 @@ cache_prefix={tmp_path}/cache2
 
 
 def test_reference_incremental_erase_path(tmp_path, reference_binary):
-    """Erase-path differential (VERDICT r2 item 7): successive
+    """Erase-path differential: successive
     starting_assembly configs form the walk-set sequence
     [A, A, C] -> [A, C] -> [C] -> [A, C]; the reference binary scores each
     set FRESH (start prob), while OUR side reuses one ProbCalculator whose

@@ -84,11 +84,10 @@ def test_multi_window_score_matches_staged_pipeline():
           genome_len=4000)
 
 
-def test_sorted_pallas_path_matches(monkeypatch):
-    """The production TPU configuration (sorted-dynamic SWAR kernel pair
-    + block layout + rank-keyed dedup) in interpret mode must score
-    identically to the plain jnp path."""
-    monkeypatch.setenv("GAML_PALLAS_INTERPRET", "1")
+def test_sorted_pallas_path_matches():
+    """The GPU configuration (r0 counting sort + the Pallas kernel +
+    rank-keyed dedup), kernel in interpret mode, must score identically
+    to the plain jnp path."""
     genome, reads = sample_world(seed=21, genome_len=3000, n_reads=400)
     bundle = make_bundle(reads)
     dev = DeviceRescorer(bundle)
@@ -96,7 +95,8 @@ def test_sorted_pallas_path_matches(monkeypatch):
                 total_len=len(genome), min_prob_per_base=MPB,
                 min_prob_start=MPS)
     s_ref, z_ref, n_ref = dev.rescore([genome], use_pallas=False, **args)
-    s_pal, z_pal, n_pal = dev.rescore([genome], use_pallas=True, **args)
+    s_pal, z_pal, n_pal = dev.rescore([genome], use_pallas=True,
+                                      interpret=True, **args)
     assert int(n_ref) == int(n_pal) <= 4096
     assert int(z_ref) == int(z_pal)
     np.testing.assert_allclose(float(s_pal), float(s_ref), rtol=2e-6)

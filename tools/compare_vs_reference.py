@@ -5,7 +5,7 @@ Their likelihoods are directly comparable (scorer parity is established by
 tests/test_reference_differential.py).  Prints both sides' start/best
 likelihood and wall time.
 
-Pinned protocol (VERDICT round-1 item 9): the dataset is a pure function
+Pinned protocol: the dataset is a pure function
 of the checked-in generator and seed 99; with runs > 1 the two binaries
 alternate within one invocation (ref, ours, ref, ours, ...) so shared-box
 drift hits both sides equally, and the summary reports per-run times,
